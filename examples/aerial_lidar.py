@@ -24,12 +24,14 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
+import jax
 import jax.numpy as jnp
 
-import pointclouds_tpu as pc
-from pointclouds_tpu.core.cloud import make_cloud_arrays
-from pointclouds_tpu.pipelines.aerial import aerial_pipeline, extract_clusters
-from pointclouds_tpu.pipelines.scenes import aerial_scene
+import pointclouds_jax as pc
+from pointclouds_jax.core.cloud import make_cloud_arrays
+from pointclouds_jax.pipelines.aerial import aerial_pipeline, extract_clusters
+from pointclouds_jax.pipelines.scenes import aerial_scene
+from pointclouds_jax.utils.profiling import device_line, gpu_card
 
 # KNN certification radius for the normals sweep: ~3x the k=15 neighbor
 # radius at the scene's ~1 pt/m^2 downsampled density.
@@ -51,25 +53,22 @@ def run_fused(data, frames):
             np.float32(2.0),
             vp,
             # Shared voxel->sweep front end (6 x 0.5 m voxels = the
-            # 3.0 m normals cell) + one-run cluster convergence — the
-            # bench.py operating point.
+            # 3.0 m normals cell) — the bench.py operating point.
             normals_cell_factor=6,
-            cluster_sweeps=16,
         )
 
-    out = run(0)
-    np.asarray(out.labels)  # compile + sync
+    jax.block_until_ready(run(0))  # compile
     t0 = time.perf_counter()
     for f in range(frames):
         out = run(f)
-    np.asarray(out.labels)
+    jax.block_until_ready(out)
     frame_ms = (time.perf_counter() - t0) * 1e3 / frames
 
     clusters = extract_clusters(out, 20, 100_000)
     n_raw = int(np.asarray(arrs.valid).sum())
     nds = int(np.asarray(out.downsampled_valid).sum())
     print("=" * 60)
-    print("Aerial LiDAR Pipeline (pointclouds_tpu, fused sweep)")
+    print("Aerial LiDAR Pipeline (pointclouds_jax, fused sweep)")
     print("=" * 60)
     print(f"Raw points:             {n_raw}")
     print(f"Voxel downsample (0.5): {nds}")
@@ -110,7 +109,7 @@ def run_per_op(data):
     total_ms = (time.perf_counter() - total0) * 1e3
 
     print("=" * 60)
-    print("Aerial LiDAR Pipeline (pointclouds_tpu, per-op API)")
+    print("Aerial LiDAR Pipeline (pointclouds_jax, per-op API)")
     print("=" * 60)
     print(f"Raw points:             {cloud.len()}")
     print(f"Voxel downsample (0.5): {ds.len()}  [{t_voxel:.1f} ms]")
@@ -134,6 +133,7 @@ def main():
 
     scale = 0.1 if args.quick else 1.0
     data = aerial_scene(seed=42, scale=scale)
+    print(f"Device: {device_line()} {gpu_card()}".rstrip())
     print(f"Aerial scene: {len(data)} points over 500x500 m")
 
     if args.per_op:

@@ -17,7 +17,7 @@ import time
 
 import numpy as np
 
-import pointclouds_tpu as pc
+import pointclouds_jax as pc
 
 try:
     import open3d as o3d  # type: ignore

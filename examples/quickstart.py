@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
-"""Quickstart: the 60-second tour of pointclouds_tpu.
+"""Quickstart: the 60-second tour of pointclouds_jax.
 
 The reference ships a near-empty placeholder here
 (ref: examples/python/quickstart.py:1-4); this version actually walks the
 API surface end to end on a tiny synthetic cloud.
 
-Run on CPU or TPU (the package picks whatever JAX platform is active):
+Run on CPU or GPU (the package picks whatever JAX platform is active):
 
     python examples/quickstart.py
 """
 
 import numpy as np
 
-import pointclouds_tpu as pc  # or: import pointclouds_rs as pc (drop-in shim)
+import pointclouds_jax as pc  # or: import pointclouds_rs as pc (drop-in shim)
 
 
 def main():

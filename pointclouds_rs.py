@@ -1,9 +1,9 @@
 """Drop-in compatibility shim: the reference library's module name.
 
 Lets unmodified scripts written against the Rust ``pointclouds_rs`` bindings
-(e.g. the reference's examples and pytest suite) run on the TPU-native
-implementation: ``import pointclouds_rs`` resolves to ``pointclouds_tpu``.
+(e.g. the reference's examples and pytest suite) run on the JAX
+implementation: ``import pointclouds_rs`` resolves to ``pointclouds_jax``.
 """
 
-from pointclouds_tpu import *  # noqa: F401,F403
-from pointclouds_tpu import __all__  # noqa: F401
+from pointclouds_jax import *  # noqa: F401,F403
+from pointclouds_jax import __all__  # noqa: F401

@@ -1,39 +1,46 @@
 #!/usr/bin/env python3
-"""Independent exactness check for bench.py's measured KITTI frame.
+"""Independent exactness check for fused KITTI frames.
 
-bench.py saves the fused pipeline's fetched outputs (voxel centroids,
-validity, the extracted clusters) to an npz and invokes this script in a
-fresh process pinned to CPU. Here the SOR stage is recomputed with an
-EXACT f64 scipy KD-tree oracle on the same (bitwise-shared) centroids,
-then the downstream per-op path — seeded RANSAC + euclidean clustering
-through the public API, exactly `tests/test_pipeline.py:run_api_path`'s
-recipe (ref: examples/python/kitti_obstacle_detection.py:87-122) — is
-replayed from that exact keep-set, and the final cluster sets must be
-geometrically identical to the fused run's. This is the fused-vs-exact
-cluster-parity certificate VERDICT r3 asked bench.py to carry: the
-fused SOR's uncertified rows are exactly the isolated points both paths
-remove, so the measured frame's clusters carry an exactness proof even
-when `sor_certified` is false.
+bench.py and chip_smoke.py save the fused pipeline's fetched outputs (voxel
+centroids, validity, the extracted clusters) to npz files and invoke this
+script in a fresh CPU-only process (`pipelines.parity.run_kitti_verifier`).
+Here the SOR stage is recomputed with an EXACT f64 scipy KD-tree oracle on
+the same (bitwise-shared) centroids, then the downstream per-op path —
+seeded RANSAC + euclidean clustering through the public API, exactly
+`tests/test_pipeline.py:run_api_path`'s recipe (ref:
+examples/python/kitti_obstacle_detection.py:87-122) — is replayed from that
+exact keep-set, and the final cluster sets must be geometrically identical
+to the fused run's. The fused SOR's uncertified rows are exactly the
+isolated points both paths remove, so a frame's clusters carry an
+exactness proof even when `sor_certified` is false.
 
-Prints ONE JSON line: {"cluster_parity_exact": bool, ...}.
+Prints ONE JSON line per frame: {"cluster_parity_exact": bool, ...}.
 
-Usage: python scripts/verify_kitti_parity.py <fused.npz> <seed>
+Usage: python scripts/verify_kitti_parity.py <fused.npz> <seed> [...]
 """
 
 import json
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+# CPU only, and no persistent compilation cache: this process must never
+# open the accelerator beside its parent, and reloading XLA:CPU
+# executables from a cache can crash the process.
+os.environ["JAX_PLATFORMS"] = "cpu"
+
+import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_compilation_cache", False)
 
-from scipy.spatial import cKDTree
+from scipy.spatial import cKDTree  # noqa: E402
 
-import pointclouds_tpu as pc
+import pointclouds_jax as pc  # noqa: E402
+from pointclouds_jax.pipelines.parity import canon_clusters  # noqa: E402
 
 # Defaults = bench.py's config; bench passes its ACTUAL parameters through
 # the npz (key "params", a JSON string) so the two sides provably share one
@@ -45,26 +52,7 @@ DEFAULT_PARAMS = dict(
 )
 
 
-def _lexsorted_rows(a):
-    """Rows in lexicographic order — column-independent np.sort(axis=0)
-    would compare two DIFFERENT point sets equal (e.g. {(0,1),(1,0)} vs
-    {(0,0),(1,1)})."""
-    return a[np.lexsort(a.T[::-1])]
-
-
-def _canon_clusters(pts_list):
-    """Clusters as row-lexsorted arrays, ordered by (-size, smallest
-    member point): equal-size clusters pair by geometry, not by list
-    position (which depends on path-specific row numbering)."""
-    out = [_lexsorted_rows(np.asarray(p, np.float32)) for p in pts_list]
-    out.sort(
-        key=lambda p: (-len(p), tuple(p[0].tolist()) if len(p) else ())
-    )
-    return out
-
-
-def main():
-    path, seed = sys.argv[1], int(sys.argv[2])
+def verify(path, seed):
     z = np.load(path)
     centroids = z["centroids"]
     ds_valid = z["ds_valid"].astype(bool)
@@ -108,8 +96,8 @@ def main():
     clusters = pc.euclidean_cluster(obstacles, CLUSTER_R, MIN_SIZE, MAX_SIZE)
 
     obs_pts = obstacles.to_numpy()
-    exact = _canon_clusters([obs_pts[c] for c in clusters])
-    fused = _canon_clusters([
+    exact = canon_clusters([obs_pts[c] for c in clusters])
+    fused = canon_clusters([
         fused_points[fused_offsets[i] : fused_offsets[i + 1]]
         for i in range(len(fused_offsets) - 1)
     ])
@@ -118,17 +106,21 @@ def main():
     ok = exact_sizes == fused_sizes and all(
         np.array_equal(a, f) for a, f in zip(exact, fused)
     )
-    print(
-        json.dumps(
-            {
-                "cluster_parity_exact": bool(ok),
-                "exact_sizes": exact_sizes,
-                "fused_sizes": fused_sizes,
-                "exact_cleaned": int(keep.sum()),
-                "params": params,
-            }
-        )
-    )
+    return {
+        "cluster_parity_exact": bool(ok),
+        "exact_sizes": exact_sizes,
+        "fused_sizes": fused_sizes,
+        "exact_cleaned": int(keep.sum()),
+        "params": params,
+    }
+
+
+def main():
+    args = sys.argv[1:]
+    if not args or len(args) % 2:
+        sys.exit("usage: verify_kitti_parity.py <fused.npz> <seed> [...]")
+    for path, seed in zip(args[::2], args[1::2]):
+        print(json.dumps(verify(path, int(seed))), flush=True)
 
 
 if __name__ == "__main__":

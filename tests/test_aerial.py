@@ -4,10 +4,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-import pointclouds_tpu as pc
-from pointclouds_tpu.core.cloud import make_cloud_arrays
-from pointclouds_tpu.pipelines.aerial import aerial_pipeline, extract_clusters
-from pointclouds_tpu.pipelines.scenes import aerial_scene
+import pointclouds_jax as pc
+from pointclouds_jax.core.cloud import make_cloud_arrays
+from pointclouds_jax.pipelines.aerial import aerial_pipeline, extract_clusters
+from pointclouds_jax.pipelines.scenes import aerial_scene
 
 SCALE = 0.05
 NORMALS_CELL = 12.0  # ~3x the k=15 radius at the tiny test scale's density
@@ -140,7 +140,7 @@ def test_aerial_normals_rescue_raises_certification():
         outs[rescue] = aerial_pipeline(
             arrs.xyz, arrs.valid, np.float32(0.5), np.float32(3.0),
             np.float32(0.3), 0, np.float32(2.0), vp,
-            backend="sweep_xla", normals_rescue=rescue,
+            normals_rescue=rescue,
         )
     ds_valid = np.asarray(outs[False].downsampled_valid)
     nok0 = np.asarray(outs[False].normals_ok)[ds_valid]

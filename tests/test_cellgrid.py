@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-import pointclouds_tpu  # noqa: F401
-from pointclouds_tpu.core.cloud import make_cloud_arrays
-from pointclouds_tpu.spatial.cellgrid import (
+import pointclouds_jax  # noqa: F401
+from pointclouds_jax.core.cloud import make_cloud_arrays
+from pointclouds_jax.spatial.cellgrid import (
     build_cellgrid,
     cell_propagate_labels,
     cell_radius_neighbor_blocks,
@@ -126,7 +126,7 @@ def test_cellgrid_huge_extent_sets_table_overflow():
 
 
 def test_cell_graph_cluster_matches_bruteforce():
-    from pointclouds_tpu.spatial.cellgrid import (
+    from pointclouds_jax.spatial.cellgrid import (
         cell_graph_adjacency,
         cell_graph_labels,
     )
@@ -173,9 +173,10 @@ def test_cell_graph_cluster_matches_bruteforce():
                     trial, a, b, r)
 
 
-def test_pallas_sor_select_matches_xla_backend():
-    """The VMEM-resident Pallas selection kernel (interpret mode on CPU)
-    must agree exactly with the XLA min-extraction path."""
+def test_cellgrid_sor_with_outliers_matches_f64():
+    """Certified cell-centric SOR means equal the f64 oracle on a cloud
+    with a NaN row and an isolated far point (whose means stay
+    uncertified rather than wrong)."""
     rng = np.random.default_rng(12)
     data = np.vstack([
         (rng.random((800, 3)) * 4).astype(np.float32),
@@ -185,19 +186,17 @@ def test_pallas_sor_select_matches_xla_backend():
     grid = build_cellgrid(
         arrs.xyz, arrs.valid, jnp.float32(0.8), m_per_cell=32, cell_cap=2048
     )
-    m_x, ok_x, cert_x = cell_sor_mean_dists(grid, k=7, chunk=256)
-    m_p, ok_p, cert_p = cell_sor_mean_dists(
-        grid, k=7, backend="pallas_interpret"
-    )
-    np.testing.assert_allclose(
-        np.asarray(m_x), np.asarray(m_p), rtol=1e-6, atol=1e-7
-    )
-    np.testing.assert_array_equal(np.asarray(ok_x), np.asarray(ok_p))
-    assert bool(cert_x) == bool(cert_p)
+    means, ok, cert = cell_sor_mean_dists(grid, k=7, chunk=256)
+    means = np.asarray(means)[: len(data)]
+    ok = np.asarray(ok)[: len(data)]
+    expect = brute_sor_means(data, 7)
+    assert ok[:800].mean() > 0.95
+    assert not ok[800] and not bool(cert)  # NaN row / far point flagged
+    np.testing.assert_allclose(means[ok], expect[ok], rtol=1e-5, atol=1e-6)
 
 
 def test_point_sor_matches_cell_sor():
-    from pointclouds_tpu.spatial.cellgrid import point_sor_mean_dists
+    from pointclouds_jax.spatial.cellgrid import point_sor_mean_dists
 
     rng = np.random.default_rng(21)
     data = np.vstack([
@@ -220,7 +219,7 @@ def test_point_sor_matches_cell_sor():
 
 
 def test_point_knn_matches_bruteforce():
-    from pointclouds_tpu.spatial.cellgrid import point_knn
+    from pointclouds_jax.spatial.cellgrid import point_knn
 
     rng = np.random.default_rng(33)
     pts = (rng.random((3000, 3)) * 6).astype(np.float32)
@@ -258,7 +257,7 @@ def test_point_knn_matches_bruteforce():
 
 
 def test_point_radius_count_matches_bruteforce():
-    from pointclouds_tpu.spatial.cellgrid import point_radius_count
+    from pointclouds_jax.spatial.cellgrid import point_radius_count
 
     rng = np.random.default_rng(34)
     pts = (rng.random((2000, 3)) * 4).astype(np.float32)

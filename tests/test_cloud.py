@@ -4,7 +4,7 @@ crates/python/src/cloud.rs + crates/core/src/cloud.rs semantics)."""
 import numpy as np
 import pytest
 
-import pointclouds_tpu as pc
+import pointclouds_jax as pc
 
 
 def test_empty_cloud():

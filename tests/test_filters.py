@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-import pointclouds_tpu as pc
+import pointclouds_jax as pc
 
 
 def brute_voxel_downsample(data: np.ndarray, voxel: float) -> np.ndarray:

@@ -1,19 +1,22 @@
-"""Fused-op kernel-path parity on CPU (interpret mode): the single-
-dispatch fused ops with use_kernel=True must reproduce the XLA-mirror
-path bit-for-bit at the op-output level — this covers the rescue-kernel
-WIRING (planar packing, transposes, position clipping) that otherwise
-only executes on TPU."""
+"""Single-dispatch fused ops (ops/fusedops.py) against f64 oracles: sweep
+pass 1 + in-graph exact rescue must reproduce scipy KD-tree answers at the
+op-output level, on clouds whose sparse halo forces rows into the
+rescue."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
+from scipy.spatial import cKDTree
 
-from pointclouds_tpu.core.cloud import make_cloud_arrays
-from pointclouds_tpu.ops import fusedops as fo
-from pointclouds_tpu.spatial import engine
+from pointclouds_jax.core.cloud import make_cloud_arrays
+from pointclouds_jax.ops import fusedops as fo
+from pointclouds_jax.pipelines.parity import lexsorted_rows
+from pointclouds_jax.spatial import engine
+
+SEEDS = pytest.mark.parametrize("seed", [3, 4])
 
 
-def _cloud(n=4096, seed=3):
+def _points(n=4096, seed=3):
     # Above BRUTE_THRESHOLD so the sweep path (not the small brute) runs;
     # mixed density so some rows actually get flagged and rescued.
     rng = np.random.default_rng(seed)
@@ -24,95 +27,101 @@ def _cloud(n=4096, seed=3):
         (rng.random((32, 3)) * 16 - 4).astype(np.float32),
     ])
     assert len(pts) > engine.BRUTE_THRESHOLD
-    return make_cloud_arrays(pts)
+    return pts
 
 
-def _run_pair(fn):
-    a = fn(uk=False)
-    b = fn(uk=True)
-    return a, b
-
-
-def test_sor_fused_kernel_parity():
-    arrs = _cloud()
-    n = arrs.capacity
-    cap = fo.fused_rescue_cap(n)
-
-    def run(uk):
-        out, info = fo.sor_fused(
-            arrs, jnp.float32(1.5), k=10, wr=4, cap=cap, use_kernel=uk,
-            interpret=uk,
-        )
-        return np.asarray(out.xyz), np.asarray(out.valid), np.asarray(info)
-
-    (x0, v0, i0), (x1, v1, i1) = _run_pair(lambda uk: run(uk))
-    assert i0[1] == 1 and i1[1] == 1, "rescue cap overflowed; enlarge cap"
-    assert i0[0] == i1[0]
-    np.testing.assert_array_equal(v0, v1)
-    np.testing.assert_allclose(x0[v0], x1[v1], atol=0)
-
-
-def test_ror_fused_kernel_parity():
-    arrs = _cloud(seed=5)
-    n = arrs.capacity
-    cap = fo.fused_rescue_cap(n)
-
-    def run(uk):
-        out, info = fo.ror_fused(
-            arrs, jnp.float32(0.6), jnp.int32(4), wr=4, cap=cap,
-            use_kernel=uk, interpret=uk,
-        )
-        return np.asarray(out.valid), np.asarray(info)
-
-    (v0, i0), (v1, i1) = _run_pair(lambda uk: run(uk))
-    assert i0[1] == 1 and i1[1] == 1
-    assert i0[0] == i1[0]
-    np.testing.assert_array_equal(v0, v1)
-
-
-def test_normals_fused_kernel_parity():
-    arrs = _cloud(seed=7)
-    n = arrs.capacity
-    cap = 2048  # headroom: the sparse halo flags many rows
-    vp = jnp.asarray([0.0, 0.0, 100.0], jnp.float32)
-
-    def run(uk):
-        nrm, exact = fo.normals_fused(
-            arrs.xyz, arrs.valid, vp, k=10, wr=4, cap=cap, use_kernel=uk,
-            interpret=uk,
-        )
-        return np.asarray(nrm), int(np.asarray(exact))
-
-    (n0, e0), (n1, e1) = _run_pair(lambda uk: run(uk))
-    assert e0 == 1 and e1 == 1
-    valid = np.asarray(arrs.valid)
-    # Kernel and mirror may pick different-but-equidistant neighbor sets
-    # at exact ties; on random data normals should agree to fp tolerance.
-    dot = np.abs(np.sum(n0[valid] * n1[valid], axis=1))
-    assert (dot > 1.0 - 1e-4).mean() > 0.999
-
-
-def test_knn_fused_kernel_parity():
-    arrs = _cloud(seed=9)
-    n = arrs.capacity
-    cap = 2048  # headroom: the sparse halo flags many rows
-
-    def run(uk):
-        d, i, nv, exact = fo.knn_fused(
-            arrs.xyz, arrs.valid, k=8, wr=4, cap=cap, use_kernel=uk,
-            interpret=uk,
-        )
-        return (np.asarray(d), np.asarray(i), np.asarray(nv),
-                int(np.asarray(exact)))
-
-    (d0, i0, v0, e0), (d1, i1, v1, e1) = _run_pair(lambda uk: run(uk))
-    assert e0 == 1 and e1 == 1
-    valid = np.asarray(arrs.valid)
-    np.testing.assert_array_equal(v0[valid], v1[valid])
-    np.testing.assert_allclose(
-        d0[valid][v0[valid]], d1[valid][v1[valid]], atol=1e-5
+@SEEDS
+def test_sor_fused_matches_f64_oracle(seed):
+    pts = _points(seed=seed)
+    arrs = make_cloud_arrays(pts)
+    k, std_mul = 10, 1.5
+    out, info = fo.sor_fused(
+        arrs, jnp.float32(std_mul), k=k, wr=4,
+        cap=fo.fused_rescue_cap(arrs.capacity),
     )
+    info = np.asarray(info)
+    assert info[1] == 1, "rescue cap overflowed; enlarge cap"
+    p64 = pts.astype(np.float64)
+    d, _ = cKDTree(p64).query(p64, k=k + 1)
+    means = d[:, 1:].mean(axis=1)
+    thr = means.mean() + std_mul * means.std()
+    # f32 means sit within ~1e-6 relative of the f64 ones: rows that close
+    # to the threshold may go either way.
+    assert not (np.abs(means - thr) <= 1e-5 * thr).any()
+    want = lexsorted_rows(pts[means <= thr])
+    got = np.asarray(out.xyz)[np.asarray(out.valid)]
+    assert info[0] == len(want) == len(got)
+    np.testing.assert_array_equal(lexsorted_rows(got), want)
+
+
+@SEEDS
+def test_ror_fused_matches_f64_oracle(seed):
+    pts = _points(seed=seed + 2)
+    arrs = make_cloud_arrays(pts)
+    r, m = 0.6, 4
+    out, info = fo.ror_fused(
+        arrs, jnp.float32(r), jnp.int32(m), wr=4,
+        cap=fo.fused_rescue_cap(arrs.capacity),
+    )
+    info = np.asarray(info)
+    assert info[1] == 1
+    tree = cKDTree(pts.astype(np.float64))
+    lo = tree.query_ball_point(pts, r * (1 - 1e-6), return_length=True)
+    hi = tree.query_ball_point(pts, r * (1 + 1e-6), return_length=True)
+    keep_lo, keep_hi = lo >= m, hi >= m  # count includes self
+    assert (keep_lo == keep_hi).all(), "a point sits on the radius"
+    got = np.asarray(out.xyz)[np.asarray(out.valid)]
+    assert info[0] == keep_lo.sum() == len(got)
+    np.testing.assert_array_equal(
+        lexsorted_rows(got), lexsorted_rows(pts[keep_lo])
+    )
+
+
+@SEEDS
+def test_normals_fused_matches_f64_oracle(seed):
+    pts = _points(seed=seed + 4)
+    arrs = make_cloud_arrays(pts)
+    k = 10
+    vp = np.array([0.0, 0.0, 100.0])
+    nrm, exact = fo.normals_fused(
+        arrs.xyz, arrs.valid, jnp.asarray(vp, jnp.float32), k=k, wr=4,
+        cap=2048,  # headroom: the sparse halo flags many rows
+    )
+    assert int(np.asarray(exact)) == 1
+    nrm = np.asarray(nrm)[: len(pts)]
+    p64 = pts.astype(np.float64)
+    _, idx = cKDTree(p64).query(p64, k=k)
+    compared = 0
+    for i in range(0, len(pts), 7):
+        w, v = np.linalg.eigh(np.cov(p64[idx[i]].T, bias=True))
+        gap = (w[1] - w[0]) / w[2]
+        if gap < 0.05:
+            continue  # smallest eigenvector ill-defined
+        n64 = v[:, 0] if v[:, 0] @ (vp - p64[i]) >= 0 else -v[:, 0]
+        # f32 Cardano resolves eigenvalues to ~sqrt(eps32) of the largest.
+        limit = 8 * np.sqrt(np.finfo(np.float32).eps) / gap
+        assert np.arccos(np.clip(n64 @ nrm[i], -1, 1)) <= limit, i
+        compared += 1
+    assert compared > 100
+
+
+@SEEDS
+def test_knn_fused_matches_f64_oracle(seed):
+    pts = _points(seed=seed + 6)
+    arrs = make_cloud_arrays(pts)
+    k = 8
+    d, i, nv, exact = fo.knn_fused(
+        arrs.xyz, arrs.valid, k=k, wr=4,
+        cap=2048,  # headroom: the sparse halo flags many rows
+    )
+    assert int(np.asarray(exact)) == 1
+    n = len(pts)
+    d, i, nv = (np.asarray(a)[:n] for a in (d, i, nv))
+    assert nv.all()
+    wd, wi = cKDTree(pts.astype(np.float64)).query(
+        pts.astype(np.float64), k=k
+    )
+    np.testing.assert_allclose(d, wd, rtol=1e-5, atol=1e-5)
     # Indices may differ only at exact distance ties (none expected in
     # random data).
-    same = (i0[valid] == i1[valid]) | ~v0[valid]
-    assert same.mean() > 0.9999
+    assert (i == wi).mean() > 0.9999

@@ -13,11 +13,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import pointclouds_tpu  # noqa: F401
-from pointclouds_tpu import api
-from pointclouds_tpu.core.cloud import make_cloud_arrays
-from pointclouds_tpu.spatial import engine
-from pointclouds_tpu.spatial.knn import bruteforce_knn
+import pointclouds_jax  # noqa: F401
+from pointclouds_jax import api
+from pointclouds_jax.core.cloud import make_cloud_arrays
+from pointclouds_jax.spatial import engine
+from pointclouds_jax.spatial.knn import bruteforce_knn
 
 
 def _cloud(data):

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-import pointclouds_tpu as pc
-from pointclouds_tpu.spatial.hostindex import HostCellIndex
+import pointclouds_jax as pc
+from pointclouds_jax.spatial.hostindex import HostCellIndex
 
 
 def _cloud(seed=0, n=5000):
@@ -108,8 +108,8 @@ def test_api_knn_small_batch_matches_brute():
 def test_native_index_matches_numpy_path(monkeypatch):
     """The C++ index (native/pcindex.cpp) must reproduce the numpy
     HostCellIndex exactly: same rows, same distances, same tie order."""
-    import pointclouds_tpu.spatial.hostindex as hi
-    from pointclouds_tpu import native
+    import pointclouds_jax.spatial.hostindex as hi
+    from pointclouds_jax import native
 
     if native.create_index(np.zeros((1, 3), np.float32),
                            np.ones(1, bool)) is None:
@@ -219,7 +219,7 @@ def test_native_cluster_epilogue_matches_numpy():
     size-desc with lexicographic (= first member) tiebreak, members
     ascending, min/max size filter inclusive
     (ref: crates/segmentation/src/euclidean_cluster.rs:169-186)."""
-    from pointclouds_tpu import native as _native
+    from pointclouds_jax import native as _native
 
     if not _native.available():
         import pytest

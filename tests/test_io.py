@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-import pointclouds_tpu as pc
-from pointclouds_tpu.io import las as las_io
+import pointclouds_jax as pc
+from pointclouds_jax.io import las as las_io
 
-REF_DATA = "/root/reference/data"
+REF_DATA = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data")
 
 
 def test_read_reference_pcd_files():
@@ -173,7 +173,7 @@ def test_ply_bad_magic_raises(tmp_path):
 def test_ply_colors_roundtrip(tmp_path):
     xyz = np.random.rand(5, 3).astype(np.float32)
     colors = np.random.randint(0, 256, (5, 3), dtype=np.uint8)
-    from pointclouds_tpu.io import ply as ply_io
+    from pointclouds_jax.io import ply as ply_io
 
     path = str(tmp_path / "c.ply")
     ply_io.write_ply_binary(path, xyz, colors=colors)

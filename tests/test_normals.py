@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-import pointclouds_tpu as pc
-from pointclouds_tpu.ops.normals import cardano_smallest_eigvec
+import pointclouds_jax as pc
+from pointclouds_jax.ops.normals import cardano_smallest_eigvec
 
 import jax.numpy as jnp
 
@@ -121,11 +121,11 @@ def test_normals_from_moment_rows_matches_knn_path():
     sets."""
     import jax.numpy as jnp
 
-    from pointclouds_tpu.ops.normals import (
+    from pointclouds_jax.ops.normals import (
         normals_from_knn,
         normals_from_moment_rows,
     )
-    from pointclouds_tpu.spatial.knn import bruteforce_knn
+    from pointclouds_jax.spatial.knn import bruteforce_knn
 
     rng = np.random.default_rng(11)
     xyz = jnp.asarray((rng.random((600, 3)) * 4).astype(np.float32))

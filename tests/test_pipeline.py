@@ -1,17 +1,17 @@
 """Fused pipeline vs the exact per-op API path: the two must agree on
 KITTI-style scenes (this is the fused path's correctness gate, see
-pointclouds_tpu/pipelines/kitti.py docstring)."""
+pointclouds_jax/pipelines/kitti.py docstring)."""
 
 import numpy as np
 import pytest
 
-import pointclouds_tpu as pc
-from pointclouds_tpu.core.cloud import make_cloud_arrays
-from pointclouds_tpu.pipelines.kitti import (
+import pointclouds_jax as pc
+from pointclouds_jax.core.cloud import make_cloud_arrays
+from pointclouds_jax.pipelines.kitti import (
     extract_clusters,
     kitti_obstacle_pipeline,
 )
-from pointclouds_tpu.pipelines.scenes import aerial_scene, kitti_scene
+from pointclouds_jax.pipelines.scenes import aerial_scene, kitti_scene
 
 
 def run_api_path(data, seed):

@@ -5,7 +5,7 @@ invariant properties over randomized inputs."""
 import numpy as np
 from hypothesis import given, settings, strategies as st
 
-import pointclouds_tpu as pc
+import pointclouds_jax as pc
 
 SETTINGS = dict(max_examples=15, deadline=None)
 

@@ -3,7 +3,7 @@
 VERBATIM copy of /root/reference/tests/test_python.py (the upstream
 pointclouds-rs pytest suite, 36 tests) — THE external definition of
 "drop-in compatible". It imports `pointclouds_rs`, which resolves to this
-repo's shim (pointclouds_rs.py -> pointclouds_tpu.api). Do not edit the
+repo's shim (pointclouds_rs.py -> pointclouds_jax.api). Do not edit the
 test bodies; parity regressions must be fixed in the API layer.
 
 Provenance: copied 2026-08-17 from the read-only reference checkout.

@@ -4,7 +4,7 @@ icp_plane.rs; tolerances follow the reference's own tests)."""
 import numpy as np
 import pytest
 
-import pointclouds_tpu as pc
+import pointclouds_jax as pc
 
 
 def _cube(n=6):
@@ -174,57 +174,53 @@ def test_icp_converges_with_noise():
     np.testing.assert_allclose(r.translation, shift, atol=0.02)
 
 
-def test_nn_argmin_kernel_matches_xla_path():
-    """Fused 1-NN Pallas kernel (interpret mode on CPU) vs the XLA
-    one-shot correspondence path: same neighbor distances, same indices
-    (both tie-break toward the last index)."""
+@pytest.mark.parametrize(
+    "n_q,n_p", [(300, 500), (128, 128), (1, 7), (257, 1000)]
+)
+def test_nn_1_matches_f64_oracle(n_q, n_p):
+    """ICP's one-shot 1-NN correspondence pass vs f64 brute force, with
+    invalid rows on both sides."""
     import jax.numpy as jnp
 
-    from pointclouds_tpu.ops.registration import _nn_1, _to_planar
-    from pointclouds_tpu.spatial.pallas_kernels import nn_argmin
+    from pointclouds_jax.ops.registration import _nn_1
 
     rng = np.random.default_rng(11)
-    for n_q, n_p in [(300, 500), (128, 128), (1, 7), (257, 1000)]:
-        q = (rng.random((n_q, 3)) * 10).astype(np.float32)
-        p = (rng.random((n_p, 3)) * 10).astype(np.float32)
-        qu = jnp.asarray(rng.random(n_q) > 0.1)
-        pu = jnp.asarray(rng.random(n_p) > 0.1)
-        d2, pos = nn_argmin(
-            _to_planar(jnp.asarray(q), qu),
-            _to_planar(jnp.asarray(p), pu),
-            interpret=True,
-        )
-        kd = np.sqrt(np.maximum(np.asarray(d2)[:n_q], 0.0))
-        kidx = np.asarray(pos)[:n_q].astype(int)
-        xd, xidx, xfound = _nn_1(
-            jnp.asarray(q), qu, jnp.asarray(p), pu, use_kernel=False
-        )
-        ok = np.asarray(xfound)
-        np.testing.assert_allclose(kd[ok], np.asarray(xd)[ok], atol=1e-5)
-        assert (kidx[ok] == np.asarray(xidx)[ok]).all()
+    q = (rng.random((n_q, 3)) * 10).astype(np.float32)
+    p = (rng.random((n_p, 3)) * 10).astype(np.float32)
+    qu = rng.random(n_q) > 0.1
+    pu = rng.random(n_p) > 0.1
+    pu[0] = True
+    d, idx, found = map(np.asarray, _nn_1(
+        jnp.asarray(q), jnp.asarray(qu), jnp.asarray(p), jnp.asarray(pu)
+    ))
+    d2 = ((q[:, None, :].astype(np.float64) - p[None]) ** 2).sum(-1)
+    d2[:, ~pu] = np.inf
+    np.testing.assert_array_equal(found, qu)
+    np.testing.assert_allclose(
+        d[qu], np.sqrt(d2[qu].min(1)), rtol=1e-5, atol=1e-5
+    )
+    assert (idx[qu] == d2[qu].argmin(1)).all()  # no ties in random data
 
 
-def test_icp_kernel_path_matches_xla():
-    """icp_point_to_point with the kernel correspondence path (interpret
-    via CPU pallas) vs the XLA path: identical results."""
+def test_icp_packed_recovers_translation():
+    """The jitted point-to-point ICP program aligns a cloud with its
+    translated copy: the recovered transform maps source onto target."""
     import jax.numpy as jnp
 
-    from pointclouds_tpu.ops import registration as _reg
+    from pointclouds_jax.ops import registration as _reg
 
     rng = np.random.default_rng(9)
     data = (rng.random((400, 3)) * 2).astype(np.float32)
     src = pc.PointCloud.from_numpy(data)
     tgt = pc.PointCloud.from_numpy(data + np.float32(0.05))
-    outs = []
-    for uk in (False, True):
-        outs.append(
-            np.asarray(
-                _reg.icp_point_to_point_packed(
-                    src._arrs.xyz, src._arrs.valid,
-                    tgt._arrs.xyz, tgt._arrs.valid,
-                    20, jnp.float32(1e-5), jnp.float32(np.inf),
-                    use_kernel=uk, interpret=uk,
-                )
-            )
+    out = np.asarray(
+        _reg.icp_point_to_point_packed(
+            src._arrs.xyz, src._arrs.valid,
+            tgt._arrs.xyz, tgt._arrs.valid,
+            20, jnp.float32(1e-5), jnp.float32(np.inf),
         )
-    np.testing.assert_allclose(outs[0], outs[1], atol=1e-5)
+    )
+    rot, trans = out[:9].reshape(3, 3), out[9:12]
+    np.testing.assert_allclose(rot, np.eye(3), atol=1e-4)
+    np.testing.assert_allclose(trans, [0.05, 0.05, 0.05], atol=1e-4)
+    assert out[13] < 1e-4  # rmse

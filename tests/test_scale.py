@@ -6,7 +6,7 @@ recovery at reference scale, :422-479 2M-point scaling). Slow on CPU
 import numpy as np
 import pytest
 
-import pointclouds_tpu as pc
+import pointclouds_jax as pc
 
 
 def build_hemisphere(n, seed, radius):

@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import pointclouds_tpu  # noqa: F401
-from pointclouds_tpu.core.cloud import make_cloud_arrays
-from pointclouds_tpu.parallel.sharding import make_mesh, sharded_kitti_pipeline
-from pointclouds_tpu.pipelines.kitti import kitti_obstacle_pipeline
-from pointclouds_tpu.pipelines.scenes import kitti_scene
+import pointclouds_jax  # noqa: F401
+from pointclouds_jax.core.cloud import make_cloud_arrays
+from pointclouds_jax.parallel.sharding import make_mesh, sharded_kitti_pipeline
+from pointclouds_jax.pipelines.kitti import kitti_obstacle_pipeline
+from pointclouds_jax.pipelines.scenes import kitti_scene
 
 
 def test_make_mesh_shapes():
@@ -92,9 +92,9 @@ def test_points_axis_actually_sharded():
 
 
 def test_sharded_aerial_runs_and_matches_unsharded():
-    from pointclouds_tpu.parallel.sharding import sharded_aerial_pipeline
-    from pointclouds_tpu.pipelines.aerial import aerial_pipeline
-    from pointclouds_tpu.pipelines.scenes import aerial_scene
+    from pointclouds_jax.parallel.sharding import sharded_aerial_pipeline
+    from pointclouds_jax.pipelines.aerial import aerial_pipeline
+    from pointclouds_jax.pipelines.scenes import aerial_scene
 
     mesh = make_mesh(8)
     b = mesh.shape["frames"]

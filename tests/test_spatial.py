@@ -6,11 +6,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import pointclouds_tpu  # noqa: F401  (enables x64 for int64 cell keys)
-from pointclouds_tpu.core.cloud import make_cloud_arrays
-from pointclouds_tpu.spatial import engine
-from pointclouds_tpu.spatial.grid import build_grid
-from pointclouds_tpu.spatial.knn import grid_knn, bruteforce_knn
+import pointclouds_jax  # noqa: F401  (enables x64 for int64 cell keys)
+from pointclouds_jax.core.cloud import make_cloud_arrays
+from pointclouds_jax.spatial import engine
+from pointclouds_jax.spatial.grid import build_grid
+from pointclouds_jax.spatial.knn import grid_knn, bruteforce_knn
 
 
 def _cloud(data):
@@ -151,13 +151,13 @@ def test_engine_knn_with_huge_coordinates():
 
 
 def _pc(data):
-    import pointclouds_tpu as pc
+    import pointclouds_jax as pc
 
     return pc.PointCloud.from_numpy(np.ascontiguousarray(data, np.float32))
 
 
 def test_radius_search_finds_points_sorted():
-    import pointclouds_tpu as pc
+    import pointclouds_jax as pc
 
     cloud = _pc(np.array([[0, 0, 0], [0.5, 0, 0], [2, 0, 0]], np.float32))
     idx = pc.radius_search(cloud, [0.0, 0.0, 0.0], 0.75)
@@ -166,14 +166,14 @@ def test_radius_search_finds_points_sorted():
 
 
 def test_radius_search_exact_boundary_inclusive():
-    import pointclouds_tpu as pc
+    import pointclouds_jax as pc
 
     cloud = _pc(np.array([[1, 0, 0], [5, 0, 0]], np.float32))
     assert pc.radius_search(cloud, [0.0, 0.0, 0.0], 1.0) == [0]
 
 
 def test_radius_search_edge_cases():
-    import pointclouds_tpu as pc
+    import pointclouds_jax as pc
 
     empty = pc.PointCloud()
     assert pc.radius_search(empty, [0, 0, 0], 10.0) == []
@@ -184,7 +184,7 @@ def test_radius_search_edge_cases():
 
 
 def test_radius_search_unsorted_same_set():
-    import pointclouds_tpu as pc
+    import pointclouds_jax as pc
 
     rng = np.random.default_rng(3)
     data = rng.random((400, 3)).astype(np.float32)
@@ -198,7 +198,7 @@ def test_radius_search_unsorted_same_set():
 
 
 def test_knn_indices_matches_knn():
-    import pointclouds_tpu as pc
+    import pointclouds_jax as pc
 
     rng = np.random.default_rng(4)
     data = rng.random((300, 3)).astype(np.float32)
@@ -219,7 +219,7 @@ def test_api_knn_self_query_fast_path_matches_cross_cloud():
     """pc.knn(cloud, cloud_points, k) takes the fused same-cloud sweep when
     the query batch IS the cloud's point set; results must be identical to
     the generic cross-cloud path (here: brute oracle)."""
-    import pointclouds_tpu as pc
+    import pointclouds_jax as pc
 
     rng = np.random.default_rng(77)
     data = (rng.random((4500, 3)) * 10).astype(np.float32)  # > 128 batch

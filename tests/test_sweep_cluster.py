@@ -7,8 +7,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import pointclouds_tpu  # noqa: F401
-from pointclouds_tpu.spatial.sweep import sweep_cluster_labels
+import pointclouds_jax  # noqa: F401
+from pointclouds_jax.spatial.sweep import sweep_cluster_labels
 
 
 def brute_components(pts, mask, r):
@@ -42,15 +42,15 @@ def canon(labels, ok):
     return sorted(tuple(sorted(v)) for v in groups.values())
 
 
-def _check(xyz, valid, r, use_kernel, row_cap=16, wr=7):
+# Each test runs on two data variants (another seed, shape or offset).
+VARIANTS = pytest.mark.parametrize("variant", [0, 1], ids=["data0", "data1"])
+
+GEO_OFFSET = np.float32([4.5e5, 1.2e5, 300.0])  # UTM-scale coordinates
+
+
+def _check(xyz, valid, r, wr=7):
     labels, exact = sweep_cluster_labels(
-        jnp.asarray(xyz),
-        jnp.asarray(valid),
-        np.float32(r),
-        use_kernel=use_kernel,
-        interpret=use_kernel,
-        row_cap=row_cap,
-        wr=wr,
+        jnp.asarray(xyz), jnp.asarray(valid), np.float32(r), wr=wr
     )
     labels = np.asarray(labels)
     expect, ok = brute_components(xyz, valid, r)
@@ -62,34 +62,26 @@ def _check(xyz, valid, r, use_kernel, row_cap=16, wr=7):
     return labels
 
 
-def test_cluster_windows_backend_dense_blobs():
-    """row_cap=None routes to the 9-dynamic-window multisweep (the dense
-    workload backend restored for aerial/slab scenes): same components as
-    union-find on a scene whose per-block candidate rows overflow the
-    flat row list."""
+def test_cluster_dense_slab_needs_wide_windows():
+    """A dense slab (~350 points per cluster cell) overflows the default
+    7-row windows: the certificate must say so, and wide windows must then
+    reproduce union-find exactly."""
     rng = np.random.default_rng(11)
-    # One dense slab: ~350 points per cluster cell -> 9-window candidate
-    # unions of ~25 rows, far past any practical flat-list cap.
     xyz = np.vstack([
         (rng.random((3500, 3)) * [2.0, 2.0, 0.05]).astype(np.float32),
         (rng.random((596, 3)) * 12.0 + 8.0).astype(np.float32),
     ]).astype(np.float32)
     valid = np.ones(len(xyz), bool)
-    # The flat row list must overflow here (else the scene is too thin to
-    # exercise the fallback); the windows backend must still be exact.
-    _, exact16 = sweep_cluster_labels(
-        jnp.asarray(xyz), jnp.asarray(valid), np.float32(0.5),
-        use_kernel=True, interpret=True, row_cap=8,
+    _, exact7 = sweep_cluster_labels(
+        jnp.asarray(xyz), jnp.asarray(valid), np.float32(0.5), wr=7
     )
-    assert not bool(exact16)
-    # wr=32: the engine's resident ladder uses wr=min(nrows, 64); the
-    # dense slab's window spans exceed the sparse-scene default wr=7.
-    _check(xyz, valid, 0.5, True, row_cap=None, wr=32)
+    assert not bool(exact7)
+    _check(xyz, valid, 0.5, wr=32)
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_cluster_blobs_and_noise(use_kernel):
-    rng = np.random.default_rng(7)
+@VARIANTS
+def test_cluster_blobs_and_noise(variant):
+    rng = np.random.default_rng(7 + variant)
     pts = np.vstack(
         [
             rng.normal([0, 0, 0], 0.3, (300, 3)),
@@ -105,50 +97,55 @@ def test_cluster_blobs_and_noise(use_kernel):
     valid[:n] = True
     xyz[50] = np.inf
     valid[60] = False
-    labels = _check(xyz, valid, 0.5, use_kernel)
+    labels = _check(xyz, valid, 0.5)
     assert labels[50] == 50 and labels[60] == 60  # singletons keep own row
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_cluster_chain_needs_iterations(use_kernel):
-    # A long chain exercises convergence (propagation + pointer jumping).
+@VARIANTS
+def test_cluster_chain_needs_iterations(variant):
+    # A long chain exercises convergence (propagation + pointer jumping);
+    # data1 is a helix, whose chain also winds through z.
     n = 400
     t = np.linspace(0, 30, n)
-    pts = np.column_stack([t, np.sin(t), np.zeros(n)]).astype(np.float32)
+    z = np.cos(t) if variant else np.zeros(n)
+    pts = np.column_stack([t, np.sin(t), z]).astype(np.float32)
     xyz = np.zeros((512, 3), np.float32)
     xyz[:n] = pts
     valid = np.zeros(512, bool)
     valid[:n] = True
-    labels = _check(xyz, valid, 0.2, use_kernel)
+    labels = _check(xyz, valid, 0.2)
     assert (labels[:n] == labels[0]).all()  # one chain component
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_cluster_inclusive_boundary(use_kernel):
+@VARIANTS
+def test_cluster_inclusive_boundary(variant):
     # Points at EXACTLY distance r must connect (inclusive threshold,
-    # ref: crates/segmentation/src/euclidean.rs behavior).
+    # ref: crates/segmentation/src/euclidean.rs behavior). data1 shifts
+    # the points to UTM-scale coordinates, where they stay exact in f32.
     xyz = np.zeros((256, 3), np.float32)
     xyz[0] = [0, 0, 0]
     xyz[1] = [1.0, 0, 0]
     xyz[2] = [2.5, 0, 0]
+    if variant:
+        xyz[:3] += GEO_OFFSET
     valid = np.zeros(256, bool)
     valid[:3] = True
-    labels = _check(xyz, valid, 1.0, use_kernel)
+    labels = _check(xyz, valid, 1.0)
     assert labels[0] == labels[1] == 0
     assert labels[2] == 2
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_cluster_georeferenced(use_kernel):
-    rng = np.random.default_rng(9)
+@VARIANTS
+def test_cluster_georeferenced(variant):
+    rng = np.random.default_rng(9 + variant)
     pts = np.vstack(
         [
             rng.normal([2, 0, 0], 0.2, (200, 3)),
             rng.normal([8, 3, 1], 0.2, (200, 3)),
         ]
-    ).astype(np.float32) + np.float32([4.5e5, 1.2e5, 300.0])
+    ).astype(np.float32) + GEO_OFFSET * np.float32(1 + variant)
     xyz = np.zeros((512, 3), np.float32)
     xyz[: len(pts)] = pts
     valid = np.zeros(512, bool)
     valid[: len(pts)] = True
-    _check(xyz, valid, 1.0, use_kernel)
+    _check(xyz, valid, 1.0)

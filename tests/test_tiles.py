@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh
 
-from pointclouds_tpu.core.cloud import make_cloud_arrays
-from pointclouds_tpu.ops.filters import voxel_downsample_masked
-from pointclouds_tpu.parallel.tiles import tiled_kitti_pipeline
-from pointclouds_tpu.pipelines.kitti import kitti_obstacle_pipeline
-from pointclouds_tpu.pipelines.scenes import kitti_scene
+from pointclouds_jax.core.cloud import make_cloud_arrays
+from pointclouds_jax.ops.filters import voxel_downsample_masked
+from pointclouds_jax.parallel.tiles import tiled_kitti_pipeline
+from pointclouds_jax.pipelines.kitti import kitti_obstacle_pipeline
+from pointclouds_jax.pipelines.scenes import kitti_scene
 
 SCALE = 0.2
 B = 4

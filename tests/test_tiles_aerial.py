@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh
 
-from pointclouds_tpu.core.cloud import make_cloud_arrays
-from pointclouds_tpu.parallel.tiles import tiled_aerial_pipeline
-from pointclouds_tpu.pipelines.aerial import aerial_pipeline
-from pointclouds_tpu.pipelines.scenes import aerial_scene
+from pointclouds_jax.core.cloud import make_cloud_arrays
+from pointclouds_jax.parallel.tiles import tiled_aerial_pipeline
+from pointclouds_jax.pipelines.aerial import aerial_pipeline
+from pointclouds_jax.pipelines.scenes import aerial_scene
 
 SCALE = 0.06
 B = 2
